@@ -1,4 +1,4 @@
-"""Minimal tpu-vg usage: shapes, paints, text, readback to PNG.
+"""Minimal vgtpu usage: shapes, paints, text, readback to PNG.
 
     python examples/basic.py out.png
 """
@@ -33,15 +33,13 @@ def main(out_path: str = "/tmp/vgtpu_basic.png") -> None:
     vg.closePath(ctx)
     vg.fillPath(ctx, vg.color4ub(250, 180, 30, 255), vg.FillFlags.ConcaveEvenOddAA)
 
-    # text (uses any TTF; here matplotlib's bundled DejaVu if present)
-    import glob
+    # text (the DejaVu Sans the package ships)
+    from vgtpu.fonts import default_font_data
 
-    fonts = glob.glob("/root/.cache/uv/**/mpl-data/fonts/ttf/DejaVuSans.ttf", recursive=True)
-    if fonts:
-        data = open(fonts[0], "rb").read()
-        f = vg.createFont(ctx, "sans", data, len(data), 0)
-        cfg = vg.makeTextConfig(ctx, f, 28.0, vg.TextAlign.BottomLeft, vg.Colors.White)
-        vg.text(ctx, cfg, 40, 330, "tpu-vg: vector graphics on TPUs")
+    data = default_font_data()
+    f = vg.createFont(ctx, "sans", data, len(data), 0)
+    cfg = vg.makeTextConfig(ctx, f, 28.0, vg.TextAlign.BottomLeft, vg.Colors.White)
+    vg.text(ctx, cfg, 40, 330, "vgtpu: vector graphics on JAX")
 
     vg.end(ctx, background=(0.12, 0.12, 0.14, 1.0))
     from PIL import Image

@@ -6,13 +6,13 @@ Tiles, entries and edge chunks are co-partitioned host-side
 the composite all run device-local: ZERO collectives in the frame body;
 the only cross-device movement is the output framebuffer gather.
 
-On this machine run it on the virtual CPU mesh:
+Without accelerators, run it on a virtual CPU mesh:
 
-    JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu \
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/sharded_frame.py 8
 
-On a real TPU slice the same code shards over the physical mesh.
+On a machine with several GPUs the same code shards over the cards
+(`python examples/sharded_frame.py 4`).
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def main() -> None:
     print(f"devices={n}  max|sharded - single|={diff:.2e}")
     print(f"chunk balance={meta['chunk_balance']:.3f}  "
           f"entry balance={meta['entry_balance']:.3f}  "
-          f"ICI bytes in frame body={meta['ici_bytes_per_frame']}")
+          f"collective bytes in frame body={meta['collective_bytes_per_frame']}")
     assert diff <= 1e-5
     try:
         from PIL import Image

@@ -1,11 +1,11 @@
 """Batched variant rendering: an animation burst in ONE device dispatch.
 
 The reference renders frames strictly one at a time (vg.cpp:1076-1288).
-`VariantBatch` is the TPU-native serving mode: K paint-value variants of one
+`VariantBatch` is the batched serving mode: K paint-value variants of one
 scene — here a K-step fade/hue-cycle burst — bake once and render as a single
 compiled program.  Coverage (the winding stage) is computed once and shared;
-per-variant shading folds into the composite's lane axis, so the per-bucket
-kernel-launch overhead is paid once per BATCH instead of once per frame.
+per-variant shading folds into the composite's entry and tile axes, so the
+per-bucket launch overhead is paid once per BATCH instead of once per frame.
 
     python examples/variant_batch.py [K]
 """

@@ -1,4 +1,4 @@
-// vg_native: host-side geometry engine for tpu-vg.
+// vg_native: host-side geometry engine for vgtpu.
 //
 // Native implementation of the coarse rasterizer (edge -> tile binning with
 // per-row backdrops and chunked edge buffers) plus stroke expansion and path
@@ -6,7 +6,7 @@
 // vgtpu/geometry/{path,stroker}.py exactly — the Python/numpy versions remain
 // as the test oracle.  This plays the role the CPU tessellation pipeline
 // (src/path.cpp, src/stroker.cpp, libtess2) plays in the reference, feeding
-// the TPU raster instead of a GPU.
+// the device raster instead of a GPU triangle pipeline.
 //
 // C ABI, consumed via ctypes (vgtpu/native/__init__.py).
 

@@ -450,7 +450,7 @@ static PyObject *py_polyline(PathRec *s, PyObject *const *args, Py_ssize_t nargs
 
 /* replay(verbs_i32_buffer, args_f64_buffer): packed program, 8 f64 per verb.
  * Opcodes R_* above; arc's 6th slot is the winding direction.  This is the
- * TPU build's analogue of the reference's command-list byte-stream
+ * engine's analogue of the reference's command-list byte-stream
  * interpreter (vg.cpp:4332-4625) specialized to path verbs. */
 static PyObject *py_replay(PathRec *s, PyObject *const *args, Py_ssize_t nargs) {
     CHECK_NARGS("replay", 2);

@@ -1,19 +1,27 @@
-"""Shared test-font discovery (one place instead of per-file copies).
+"""Shared test fonts (one place instead of per-file copies).
 
-Finds matplotlib's bundled DejaVuSans like vgtpu.scenes.demo_ui does —
-a glob, not a hardcoded cache hash, so it survives uv-cache relayouts.
-FONT_PATH/FONT_DATA are None when no font exists; tests that need text
-must skip (not silently drop their text arm).
+FONT_PATH/FONT_DATA are the DejaVu Sans the package ships.  MONO_PATH is
+matplotlib's bundled DejaVu Sans Mono (the fallback-font tests), or None
+where matplotlib is not installed.
 """
 
 from __future__ import annotations
 
-import glob
 from pathlib import Path
 
-_candidates = glob.glob(
-    "/root/.cache/uv/**/mpl-data/fonts/ttf/DejaVuSans.ttf", recursive=True
-) or glob.glob("/opt/venv/**/mpl-data/fonts/ttf/DejaVuSans.ttf", recursive=True)
+from vgtpu.fonts import DEFAULT_FONT_PATH
 
-FONT_PATH: Path | None = Path(_candidates[0]) if _candidates else None
-FONT_DATA: bytes | None = FONT_PATH.read_bytes() if FONT_PATH else None
+FONT_PATH: Path = Path(DEFAULT_FONT_PATH)
+FONT_DATA: bytes = FONT_PATH.read_bytes()
+
+
+def _mono_path() -> Path | None:
+    try:
+        import matplotlib
+    except ImportError:
+        return None
+    p = Path(matplotlib.get_data_path()) / "fonts" / "ttf" / "DejaVuSansMono.ttf"
+    return p if p.exists() else None
+
+
+MONO_PATH: Path | None = _mono_path()

@@ -1,7 +1,7 @@
 """Batched variant rendering (raster/batch.py): K value-variants of one
 structural plan render in ONE device dispatch.  Each variant frame must be
 pixel-identical to the ordinary per-frame path (the reference renders frames
-strictly one at a time, vg.cpp:1076-1288; batching is a TPU-native capability
+strictly one at a time, vg.cpp:1076-1288; batching is a capability of this engine
 with no reference semantics beyond per-frame equality)."""
 
 from __future__ import annotations
@@ -76,19 +76,14 @@ def test_folded_batch_matches_per_frame():
                                    err_msg=f"variant {k}")
 
 
-def test_fused_batch_matches_per_frame(monkeypatch):
-    """Fused Pallas batch path (lane-axis folding), interpret mode off-TPU:
-    force the fused aux build and compare against the per-frame oracles;
-    then update_values and re-check (the fused value-plane rebuild)."""
-    from vgtpu.raster import frame as frame_mod
-
-    monkeypatch.setattr(frame_mod, "_fused_platform", lambda: True)
+def test_folded_batch_update_values_matches_per_frame():
+    """Bake, compare against the per-frame oracles, then update_values and
+    re-check (the value-table rebuild against the baked structure)."""
     ctx = vg.createContext()
     font = _fresh_font(ctx)
     vb = VariantBatch.bake(
         ctx, [lambda c, p=p: _draw_variant(c, font, p) for p in VARIANTS],
         W, H, background=BG)
-    assert vb._mode == "fused"
     imgs = np.asarray(vb.render(background=BG))
     for k, ref in enumerate(_oracles()):
         np.testing.assert_allclose(imgs[k], ref, atol=3e-6,
@@ -105,14 +100,10 @@ def test_fused_batch_matches_per_frame(monkeypatch):
                                    atol=3e-6, err_msg=f"variant {k}")
 
 
-def test_fused_batch_shared_ew_matches_per_frame(monkeypatch):
-    """k_rep > 1 path: a bucket whose padded width is a 128-multiple shares
-    ONE gathered ew block across all variants (composite_bucket_pallas re-
-    reads it per variant via the grid index map).  Needs a >=128-tile bucket:
-    1024x128 canvas = 8x16 tiles of 128x8, fully covered by one rect."""
-    from vgtpu.raster import frame as frame_mod
-
-    monkeypatch.setattr(frame_mod, "_fused_platform", lambda: True)
+def test_folded_batch_full_cover_bucket_matches_per_frame():
+    """A 128-tile bucket (1024x128 canvas = 8x16 tiles of 128x8, fully
+    covered by one rect) folded over K variants: each variant's tiles
+    scatter to their own block of the batch framebuffer."""
     w, h = 1024, 128
     # alphas equal across variants: an opacity-class flip (occlusion culling's
     # solid alpha>=1 cover test) is structural and correctly rejected
@@ -132,9 +123,6 @@ def test_fused_batch_shared_ew_matches_per_frame(monkeypatch):
     K = 3
     vb = VariantBatch.bake(vg.createContext(), [variant(k) for k in range(K)],
                            w, h, background=BG)
-    assert vb._mode == "fused"
-    assert any(kr == K for kr in vb._statics["k_reps"]), (
-        "expected at least one shared-ew bucket", vb._statics["k_reps"])
     imgs = np.asarray(vb.render(background=BG))
     for k in range(K):
         ctx = vg.createContext()
@@ -520,49 +508,31 @@ def test_fuzz_batch_matches_per_frame(seed):
 
 
 def test_render_frames_after_paint_patch_repromotes():
-    """A paint-patched plan (deferred lazy expansion, numpy pop-paint leaf)
-    dispatched through renderFrames: the pre-dispatch repromote
-    (context._repromote_if_stale) must restore the promoted resident form
-    — device pop paint, expanded params — and the fused dispatch must
-    render the PATCHED colors.  Forced fused aux on CPU exercises the
-    exact TPU patch branch."""
-    import vgtpu.raster.frame as rf
+    """A paint-patched resident plan dispatched through renderFrames must
+    render the PATCHED colors."""
+    def scene(c, col):
+        vg.beginPath(c)
+        vg.roundedRect(c, 10, 10, 150, 90, 18)
+        vg.fillPath(c, vg.color4ub(*col), vg.FillFlags.ConvexAA)
+        vg.beginPath(c)
+        vg.circle(c, 210, 64, 40)
+        vg.fillPath(c, vg.color4ub(40, 80, 200, 180),
+                    vg.FillFlags.ConvexAA)
 
-    orig = rf._fused_platform
-    rf._fused_platform = lambda: True
-    try:
-        def scene(c, col):
-            vg.beginPath(c)
-            vg.roundedRect(c, 10, 10, 150, 90, 18)
-            vg.fillPath(c, vg.color4ub(*col), vg.FillFlags.ConvexAA)
-            vg.beginPath(c)
-            vg.circle(c, 210, 64, 40)
-            vg.fillPath(c, vg.color4ub(40, 80, 200, 180),
-                        vg.FillFlags.ConvexAA)
+    ctx = vg.createContext()
+    vg.begin(ctx, 0, 256, 128, 1.0)
+    scene(ctx, (200, 80, 40, 200))
+    vg.end(ctx, background=BG, dispatch=False)
+    vg.begin(ctx, 0, 256, 128, 1.0)
+    scene(ctx, (40, 200, 90, 200))      # values-only delta: patch path
+    vg.end(ctx, background=BG, dispatch=False)
+    assert ctx.profiler.counters.get("memo_paint_hits", 0) == 1
 
-        ctx = vg.createContext()
-        vg.begin(ctx, 0, 256, 128, 1.0)
-        scene(ctx, (200, 80, 40, 200))
-        vg.end(ctx, background=BG, dispatch=False)
-        vg.begin(ctx, 0, 256, 128, 1.0)
-        scene(ctx, (40, 200, 90, 200))      # values-only delta: patch path
-        vg.end(ctx, background=BG, dispatch=False)
-        assert ctx.profiler.counters.get("memo_paint_hits", 0) == 1
-        d = ctx.last_device_arrays
-        assert d.get("_params_stale") and isinstance(
-            d["pop"]["paint"], np.ndarray)
+    (img,) = vg.renderFrames([ctx])
 
-        (img,) = vg.renderFrames([ctx])
-        d = ctx.last_device_arrays
-        assert not d.get("_params_stale")
-        assert d.get("bucket_params") is not None
-        assert not isinstance(d["pop"]["paint"], np.ndarray)
-
-        ref = vg.createContext()
-        vg.begin(ref, 0, 256, 128, 1.0)
-        scene(ref, (40, 200, 90, 200))
-        vg.end(ref, background=BG)
-        np.testing.assert_allclose(np.asarray(img),
-                                   np.asarray(ref.frame_image), atol=2e-5)
-    finally:
-        rf._fused_platform = orig
+    ref = vg.createContext()
+    vg.begin(ref, 0, 256, 128, 1.0)
+    scene(ref, (40, 200, 90, 200))
+    vg.end(ref, background=BG)
+    np.testing.assert_allclose(np.asarray(img),
+                               np.asarray(ref.frame_image), atol=2e-5)

@@ -166,17 +166,19 @@ def test_painter_order_blend():
 
 
 def test_pallas_kernel_matches_xla():
-    """The Pallas TPU kernel (interpret mode on CPU) must agree with the XLA
-    coverage implementation bit-for-bit-ish."""
+    """The frame's coverage formulation (ops/coverage.chunk_coverage) must
+    agree with the per-slot formula evaluated in float32 numpy, summed in
+    slot order, to float rounding."""
     import jax.numpy as jnp
 
-    from vgtpu.ops.coverage import coverage_chunks_body
-    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas
+    from vgtpu.ops.coverage import chunk_coverage
+
+    from tests.test_coverage_kernel import slot_sum_f32
 
     rng = np.random.default_rng(11)
     edges = rng.uniform(-40, 170, (64, 8, 4)).astype(np.float32)
-    a = np.asarray(coverage_chunks_body(jnp.asarray(edges), 8, 128))
-    b = np.asarray(coverage_chunks_pallas(jnp.asarray(edges), 8, 128, interpret=True))
+    a = slot_sum_f32(edges, 8, 128)
+    b = np.asarray(chunk_coverage(jnp.asarray(edges), 8, 128))
     np.testing.assert_allclose(a, b, atol=1e-5)
 
 
@@ -267,16 +269,18 @@ def test_fuzz_full_scenes_vs_oracle():
 
 
 def test_pallas_transposed_kernel_matches_xla():
+    """The frame's coverage formulation across pool sizes the binner uses."""
     import jax.numpy as jnp
 
-    from vgtpu.ops.coverage import coverage_chunks_body
-    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t
+    from vgtpu.ops.coverage import chunk_coverage
+
+    from tests.test_coverage_kernel import slot_sum_f32
 
     rng = np.random.default_rng(13)
     for ch in (2, 6, 24):
         edges = rng.uniform(-40, 170, (256, ch, 4)).astype(np.float32)
-        a = np.asarray(coverage_chunks_body(jnp.asarray(edges), 8, 128))
-        b = np.asarray(coverage_chunks_pallas_t(jnp.asarray(edges), 8, 128, interpret=True))
+        a = slot_sum_f32(edges, 8, 128)
+        b = np.asarray(chunk_coverage(jnp.asarray(edges), 8, 128))
         np.testing.assert_allclose(a, b, atol=1e-5, err_msg=str(ch))
 
 

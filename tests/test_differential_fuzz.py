@@ -177,7 +177,7 @@ def build_program(rng):
                                    vg.TextAlign.Right | vg.TextAlign.Baseline])),
                    color(255))
             steps.append(("TEXT", (cfg, rng.uniform(0, W - 60), rng.uniform(10, H),
-                                   str(rng.choice(["Fuzz!", "vg 123", "TPU raster",
+                                   str(rng.choice(["Fuzz!", "vg 123", "GPU raster",
                                                    "käse & ø"])))))
         elif r < 0.46:
             tris = int(rng.integers(1, 4))

@@ -1,7 +1,7 @@
 """Translated cached-list layer (api/command_list._layer_submit): a
 Cacheable command list re-submitted under a translation-only delta renders
 as a retained-scene layer (zero host replay / rebin of the artwork) with the
-frame's remaining ops composited over it — the TPU analogue of the
+frame's remaining ops composited over it — this engine's analogue of the
 reference's clCacheRender re-transforming cached meshes under any new
 matrix (vg.cpp:5845-6120, invalidation rule vg.cpp:4287-4300).
 

@@ -83,7 +83,7 @@ def test_partition_invariants(n):
     # pad entries spread: per-device TOTAL entry rows are exactly ne_dev,
     # and real entries are balanced within the LPT guarantee
     assert meta["entry_balance"] >= 0.5
-    assert meta["ici_bytes_per_frame"] == 0
+    assert meta["collective_bytes_per_frame"] == 0
 
 
 def test_partition_single_tile_scene():
@@ -97,4 +97,4 @@ def test_partition_single_tile_scene():
     plan, d = _plan(draw)
     arrays, meta = partition_plan_for_mesh(d, plan, 4)
     assert meta["t_pad"] % 4 == 0
-    assert meta["ici_bytes_per_frame"] == 0
+    assert meta["collective_bytes_per_frame"] == 0

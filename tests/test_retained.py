@@ -96,16 +96,6 @@ def test_pan_matches_direct(view):
     np.testing.assert_allclose(got, want, atol=2e-4)
 
 
-def test_pan_pallas_path_matches_direct():
-    """The TPU pan path (fused Pallas composite, in-trace param build) in
-    interpret mode must match the direct render too."""
-    scene = _bake()
-    for view in [(37, 5), (-45, -13)]:
-        got = np.asarray(scene.render(*view, use_pallas=True))
-        want = _direct(view)
-        np.testing.assert_allclose(got, want, atol=2e-4)
-
-
 def _scene_colored(ctx, card, star, g0, g1, stroke):
     """_scene with parameterized solid/gradient VALUES (structure fixed)."""
     vg.beginPath(ctx)
@@ -163,10 +153,6 @@ def test_update_paint_values_matches_fresh_bake():
         np.testing.assert_allclose(got, want, atol=2e-6,
                                    err_msg=f"view {view}")
     assert np.abs(np.asarray(scene.render(37, 5)) - before).max() > 0.05
-    # the fused Pallas pan path reads the rebuilt base params
-    got = np.asarray(scene.render(37, 5, use_pallas=True))
-    want = np.asarray(want_scene.render(37, 5, use_pallas=True))
-    np.testing.assert_allclose(got, want, atol=2e-6)
 
 
 def test_update_paint_values_rejects_structure_and_opacity_flip():
@@ -269,9 +255,6 @@ def test_fractional_x_pan_matches_direct():
         want = _direct(view)
         np.testing.assert_allclose(got, want, atol=2e-4,
                                    err_msg=f"view {view}")
-    # pallas pan path takes the same residual
-    got = np.asarray(scene.render(37.5, 5, use_pallas=True))
-    np.testing.assert_allclose(got, _direct((37.5, 5)), atol=2e-4)
     # multi-view with fractional x
     stack = np.asarray(scene.render_views([(37.5, 5), (12.25, 0)]))
     np.testing.assert_allclose(stack[0], _direct((37.5, 5)), atol=2e-4)
@@ -325,16 +308,6 @@ def test_render_views_matches_per_view():
     for k, view in enumerate(VIEWS):
         np.testing.assert_allclose(stack[k], np.asarray(scene.render(*view)),
                                    atol=2e-6, err_msg=f"view {view}")
-
-
-def test_render_views_pallas_matches_per_view():
-    scene = _bake()
-    views = [(37, 5), (-45, -13), (300, 100)]
-    stack = np.asarray(scene.render_views(views, use_pallas=True))
-    for k, view in enumerate(views):
-        np.testing.assert_allclose(
-            stack[k], np.asarray(scene.render(*view, use_pallas=True)),
-            atol=2e-6, err_msg=f"view {view}")
 
 
 def test_pan_off_scene_is_background():
@@ -555,16 +528,6 @@ def test_ss_subpixel_y_pan():
         scene.render_views([(0, 0), (0, 0.1)])
 
 
-def test_ss_pallas_path_matches_direct():
-    """The fused Pallas pan path under ss (interpret mode) must match the
-    XLA oracle's direct render."""
-    scene = _bake_ss(2)
-    for view in [(37, 5), (-45, -13.5)]:
-        got = np.asarray(scene.render(*view, use_pallas=True))
-        want = _direct_ss(2, view)
-        np.testing.assert_allclose(got, want, atol=2e-4)
-
-
 def test_ss_textured_views_match_render():
     """Supersampled retained scenes with sampling groups: the in-trace
     resample shifts by ry/ss OUTPUT pixels; render_views == render."""
@@ -647,68 +610,22 @@ def test_ss_text_matches_direct():
                                    err_msg=f"view {view}")
 
 
-def test_ss_pan_resolve_ab_bit_equal(monkeypatch):
-    """The per-entry pan resolve (pan_resolve static,
-    ops/coverage_resolve.entry_resolve_rparams) against the unresolved
-    Pallas pan path: same expressions applied in a different place, so the
-    images must agree to float tolerance — and both against the direct
-    oracle.  VGTPU_NO_RESOLVE flips the static, so both compile in one
-    process (the same-session A/B discipline the TPU bench uses)."""
+@pytest.mark.parametrize("view", [(37.5, 5), (128.25, -3.5), (-45, -13.5),
+                                  (37, 5.5)])
+def test_ss2_pan_scissor_fractional_views_match_direct(view):
+    """ss=2 pans at fractional x and half-pixel y: the scissor and the
+    clip move with the content by the exact residual, sub-row for sub-row,
+    as the direct render of the translated scene places them."""
     scene = _bake_ss(2)
-    assert "entry_bflags" in scene.d
-    monkeypatch.setenv("VGTPU_PAN_ENTRY_RESOLVE", "1")
-    for view in [(37, 5.5), (-45, -13)]:
-        got = np.asarray(scene.render(*view, use_pallas=True))
-        monkeypatch.setenv("VGTPU_NO_RESOLVE", "1")
-        raw = np.asarray(scene.render(*view, use_pallas=True))
-        monkeypatch.delenv("VGTPU_NO_RESOLVE")
-        np.testing.assert_allclose(got, raw, atol=2e-6,
-                                   err_msg=f"resolve A/B diverged at {view}")
-        np.testing.assert_allclose(got, _direct_ss(2, view), atol=2e-4,
-                                   err_msg=f"vs direct at {view}")
+    got = np.asarray(scene.render(*view))
+    np.testing.assert_allclose(got, _direct_ss(2, view), atol=2e-4,
+                               err_msg=f"view {view}")
 
 
-def test_ss_pan_resolve_scissor_fractional_x(monkeypatch):
-    """The resolve's residual-shifted scissor at a FRACTIONAL x view: the
-    scissor rect must move with the content by the exact subpixel residual
-    (entry_resolve_rparams adds rx/ry to the tile-local origin, matching the
-    composite kernel's P_OX convention)."""
-    monkeypatch.setenv("VGTPU_PAN_ENTRY_RESOLVE", "1")
+def test_ss2_render_views_match_render():
     scene = _bake_ss(2)
-    for view in [(37.5, 5), (128.25, -3.5)]:
-        got = np.asarray(scene.render(*view, use_pallas=True))
-        want = _direct_ss(2, view)
-        np.testing.assert_allclose(got, want, atol=2e-4,
-                                   err_msg=f"view {view}")
-
-
-def test_pan_chunk_gather_ab_matches(monkeypatch):
-    """The chunk-gather pan formulation (frame_fb_pallas with dynamic
-    backdrop P_BD rows) vs the legacy entry-gather composite: same scene,
-    same views, float-equal images.  _scene covers multi-chunk entries,
-    clip tiles, gradients, scissor and a tri batch, so the pteb fold +
-    in-kernel backdrop are all exercised."""
-    scene = _bake()
-    assert "bucket_pteb" in scene.d and "bucket_te_pad" in scene.d
-    for view in [(37, 5), (-45, -13)]:
-        got = np.asarray(scene.render(*view, use_pallas=True))
-        monkeypatch.setenv("VGTPU_PAN_NO_CHUNKGATHER", "1")
-        legacy = np.asarray(scene.render(*view, use_pallas=True))
-        monkeypatch.delenv("VGTPU_PAN_NO_CHUNKGATHER")
-        np.testing.assert_allclose(got, legacy, atol=2e-6,
-                                   err_msg=f"chunk-gather A/B at {view}")
-        np.testing.assert_allclose(got, _direct(view), atol=2e-4,
-                                   err_msg=f"vs direct at {view}")
-
-
-def test_ss_pan_chunk_gather_ab_matches(monkeypatch):
-    """Supersampled chunk-gather pan (RAW formulation, per-sub-row resolve
-    in the composite kernel) vs legacy and vs the direct oracle."""
-    scene = _bake_ss(2)
-    view = (37, 5.5)
-    got = np.asarray(scene.render(*view, use_pallas=True))
-    monkeypatch.setenv("VGTPU_PAN_NO_CHUNKGATHER", "1")
-    legacy = np.asarray(scene.render(*view, use_pallas=True))
-    monkeypatch.delenv("VGTPU_PAN_NO_CHUNKGATHER")
-    np.testing.assert_allclose(got, legacy, atol=2e-6)
-    np.testing.assert_allclose(got, _direct_ss(2, view), atol=2e-4)
+    views = [(37, 5), (-45, -13.5), (300, 100)]
+    stack = np.asarray(scene.render_views(views))
+    for k, view in enumerate(views):
+        np.testing.assert_allclose(stack[k], np.asarray(scene.render(*view)),
+                                   atol=2e-6, err_msg=f"view {view}")

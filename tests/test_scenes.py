@@ -9,6 +9,7 @@ import pytest
 import vgtpu as vg
 from vgtpu.helpers.vgpp import Renderer
 from vgtpu.scenes.svg import load_svg, render_svg
+from vgtpu.scenes.tiers import golden_diff, render_tier
 from vgtpu.scenes.tiger import tiger_svg_text
 
 GOLDEN_DIR = Path(__file__).parent / "goldens"
@@ -29,9 +30,9 @@ def _check_golden(name: str, img_u8: np.ndarray, tol=2.0):
         pytest.skip(f"golden {name} created")
     want = np.load(path)["img"]
     assert want.shape == img_u8.shape
-    diff = np.abs(want.astype(np.int32) - img_u8.astype(np.int32))
-    assert diff.mean() < tol, f"golden {name}: mean diff {diff.mean()}"
-    assert (diff > 32).mean() < 0.01, f"golden {name}: too many changed pixels"
+    mean, far = golden_diff(want, img_u8)
+    assert mean < tol, f"golden {name}: mean diff {mean}"
+    assert far < 0.01, f"golden {name}: too many changed pixels"
 
 
 def _ctx(w, h):
@@ -141,82 +142,23 @@ def test_vgpp_renderer_roundtrip():
 # ---- the five capability tiers (BASELINE.json configs) ---------------------
 
 def test_tier1_flatten_polyline_stroke_no_aa():
-    ctx = _ctx(256, 128)
-    for i in range(6):
-        vg.beginPath(ctx)
-        vg.roundedRect(ctx, 10 + i * 40, 16, 34, 96, 6 + i)
-        vg.strokePath(ctx, vg.Colors.White, 3.0, vg.StrokeFlags.ButtMiter)
-    vg.end(ctx, background=(0, 0, 0, 1))
-    _check_golden("tier1_rects_noaa", np.asarray(vg.Context.readback_u8(ctx)))
+    _check_golden("tier1_rects_noaa", render_tier("tier1_rects_noaa"))
 
 
 def test_tier2_curves_aa_joins_caps():
-    ctx = _ctx(256, 128)
-    caps = [vg.LineCap.Butt, vg.LineCap.Round, vg.LineCap.Square]
-    joins = [vg.LineJoin.Miter, vg.LineJoin.Round, vg.LineJoin.Bevel]
-    for i, (cap, join) in enumerate(zip(caps, joins)):
-        vg.beginPath(ctx)
-        vg.moveTo(ctx, 20 + i * 80, 100)
-        vg.cubicTo(ctx, 40 + i * 80, 20, 60 + i * 80, 180, 80 + i * 80, 30)
-        vg.strokePath(ctx, vg.colorHSB(i / 3, 0.8, 1.0), 8.0,
-                      vg.stroke_flags(cap, join, True))
-    vg.end(ctx, background=(0, 0, 0, 1))
-    _check_golden("tier2_curves_aa", np.asarray(vg.Context.readback_u8(ctx)))
+    _check_golden("tier2_curves_aa", render_tier("tier2_curves_aa"))
 
 
 def test_tier3_concave_fills_winding():
-    ctx = _ctx(256, 128)
-    for rule, x0 in ((vg.FillFlags.ConcaveNonZeroAA, 0), (vg.FillFlags.ConcaveEvenOddAA, 128)):
-        vg.beginPath(ctx)
-        ang = -np.pi / 2 + np.arange(5) * (4 * np.pi / 5)
-        vg.moveTo(ctx, x0 + 64 + 50 * np.cos(ang[0]), 64 + 50 * np.sin(ang[0]))
-        for a in ang[1:]:
-            vg.lineTo(ctx, x0 + 64 + 50 * np.cos(a), 64 + 50 * np.sin(a))
-        vg.closePath(ctx)
-        vg.fillPath(ctx, vg.color4ub(255, 160, 20, 255), rule)
-    vg.end(ctx, background=(0, 0, 0, 1))
-    img = np.asarray(vg.Context.readback_u8(ctx))
-    _check_golden("tier3_winding", img)
+    _check_golden("tier3_winding", render_tier("tier3_winding"))
 
 
 def test_tier4_text_atlas():
-    from tests.test_text import FONT_DATA
-
-    ctx = _ctx(256, 64)
-    f = vg.createFont(ctx, "sans", FONT_DATA, len(FONT_DATA), 0)
-    cfg = vg.makeTextConfig(ctx, f, 24.0, vg.TextAlign.MiddleLeft, vg.Colors.White)
-    vg.text(ctx, cfg, 8, 32, "Glyph cache AA")
-    vg.end(ctx, background=(0, 0, 0, 1))
-    _check_golden("tier4_text", np.asarray(vg.Context.readback_u8(ctx)))
+    _check_golden("tier4_text", render_tier("tier4_text"))
 
 
 def test_tier5_full_frame():
-    ctx = _ctx(512, 256)
-    cl = vg.createCommandList(ctx, vg.CommandListFlags.Cacheable)
-    vg.beginCommandList(ctx, cl)
-    g = vg.createRadialGradient(ctx, 128, 128, 20, 100,
-                                vg.color4ub(255, 255, 200, 255), vg.color4ub(180, 40, 0, 255))
-    vg.beginPath(ctx)
-    vg.circle(ctx, 128, 128, 100)
-    vg.fillPath(ctx, g, vg.FillFlags.ConvexAA)
-    vg.endCommandList(ctx)
-    vg.submitCommandList(ctx, cl)
-
-    vg.beginClip(ctx, vg.ClipRule.Out)
-    vg.beginPath(ctx)
-    vg.circle(ctx, 380, 128, 60)
-    vg.fillPath(ctx, vg.Colors.Black, vg.FillFlags.Convex)
-    vg.endClip(ctx)
-    vg.beginPath(ctx)
-    vg.rect(ctx, 280, 28, 200, 200)
-    vg.fillPath(ctx, vg.color4ub(30, 120, 220, 255), vg.FillFlags.ConvexAA)
-    vg.resetClip(ctx)
-
-    from vgtpu.scenes.demo_ui import draw_color_wheel
-
-    draw_color_wheel(ctx, 380, 128, 50, 30)
-    vg.end(ctx, background=(0.1, 0.1, 0.1, 1))
-    _check_golden("tier5_full", np.asarray(vg.Context.readback_u8(ctx)))
+    _check_golden("tier5_full", render_tier("tier5_full"))
 
 
 def test_svg_clip_path():

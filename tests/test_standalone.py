@@ -1,5 +1,5 @@
 """Standalone path/stroker API (include/vg/path.h, include/vg/stroker.h):
-the reference's renderer-independent geometry seam, exposed TPU-style
+the reference's renderer-independent geometry seam, exposed in this engine's form
 (outline contours + winding edges instead of triangle meshes)."""
 
 import numpy as np

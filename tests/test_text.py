@@ -8,11 +8,7 @@ import vgtpu as vg
 from vgtpu.fonts.fontstash import SkylineAtlas
 from vgtpu.fonts.system import FontSystem
 
-from tests.fontdata import FONT_DATA, FONT_PATH  # shared discovery (re-exported)
-
-if FONT_DATA is None:
-    pytest.skip("no UI font found on this machine", allow_module_level=True)
-MONO_PATH = FONT_PATH.with_name("DejaVuSansMono.ttf")
+from tests.fontdata import FONT_DATA, MONO_PATH  # shared fonts (re-exported)
 
 
 def make_ctx(w=256, h=96):
@@ -193,11 +189,11 @@ def test_atlas_grow_bumps_generation():
 
 
 class _StubFont:
-    """Deterministic rasterizer: size-px square filled with a name hash."""
+    """Deterministic rasterizer: size-px square filled with a glyph hash."""
 
-    def rasterize(self, name, size, pad=1):
+    def rasterize(self, gid, size, pad=1):
         n = int(size)
-        bm = np.full((n, n), (hash(name) % 200) + 30, np.uint8)
+        bm = np.full((n, n), (hash(gid) % 200) + 30, np.uint8)
         return bm, 0, -n, n, n, float(n)
 
 
@@ -212,16 +208,16 @@ def test_atlas_gc_compaction(monkeypatch):
     monkeypatch.setattr(fontstash, "ATLAS_MAX", 64)
     at = fontstash.GlyphAtlas()
     f = _StubFont()
-    hot = at.get_or_bake(0, f, "hot", 1, 16.0)
+    hot = at.get_or_bake(0, f, 1, 16.0)
     hot_pixels = at.bitmap[hot.atlas_y : hot.atlas_y + 16,
                            hot.atlas_x : hot.atlas_x + 16].copy()
     gen0 = at.generation
 
     gid = 100
     for _frame in range(6):
-        at.get_or_bake(0, f, "hot", 1, 16.0)      # keep the hot glyph alive
+        at.get_or_bake(0, f, 1, 16.0)      # keep the hot glyph alive
         for _ in range(4):                        # churn unique stale glyphs
-            at.get_or_bake(0, f, f"g{gid}", gid, 16.0)
+            at.get_or_bake(0, f, gid, 16.0)
             gid += 1
         at.end_frame()
 

@@ -1,115 +1,133 @@
 #!/usr/bin/env python
-"""Coverage-kernel experiments on the real benchmark chunk pools.
+"""Coverage formulations timed on the benchmark frame's real chunk pools.
 
-Times the production transposed-layout Pallas kernel against variants
-(unroll factor, pool configurations) using the chained-loop method.
-Run from the repo root: python tools/exp_coverage.py [pools...]
-e.g. python tools/exp_coverage.py 2,6,24 2,4,8,24 2,4,8,16,32
+  scan       the lax.scan over edge slots (ops/coverage.coverage_chunks_body):
+             the accumulator goes back to memory after every slot;
+  fused      the slot terms summed in slot order as one elementwise
+             expression (ops/coverage.coverage_chunks_broadcast — the one
+             the frame uses);
+  reduction  all (chunk, slot, pixel) terms broadcast and summed with one
+             jnp.sum over the slot axis (XLA picks the summation order).
+
+For the 1920x1080 benchmark frame at coverage_supersample 1 and 2 it prints
+the time of each formulation alone (ten evaluations chained in one jit,
+summed over the frame's pools) and the median time of the whole frame
+program with each formulation substituted into ops/coverage.chunk_coverage,
+in interleaved rounds.  Needs a GPU.  Run from the repo root:
+
+    python tools/exp_coverage.py [--rounds 8] [--out exp_coverage.json]
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
+import json
+import os
+import statistics
 import sys
 import time
 
-import numpy as np
 
-
-def fill_stats(plan):
-    out = []
-    for ce, cent in plan.chunk_pools:
-        e = np.asarray(ce)
-        real = (np.abs(e[:, :, 3] - e[:, :, 1]) > 1e-12).sum()
-        out.append((e.shape[0], e.shape[1], real / max(e.size // 4, 1)))
-    return out
+def _median_ms(fn, reps: int, per_call: int = 1) -> float:
+    fn().block_until_ready()              # compile + warm
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn().block_until_ready()
+        ts.append((time.perf_counter() - t0) * 1e3 / per_call)
+    return statistics.median(ts)
 
 
 def main() -> None:
-    sys.path.insert(0, ".")
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--out", help="also write the whole record here as JSON")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
     import jax
     import jax.numpy as jnp
+    import numpy as np
 
     import vgtpu as vg
-    from vgtpu.raster.binning import bin_frame
+    from vgtpu import chipcheck as cc
+    from vgtpu.ops import coverage as cov
+    from vgtpu.raster import frame as frame_mod
     from vgtpu.scenes.demo_ui import draw_benchmark_frame
 
-    pool_configs = [tuple(int(x) for x in a.split(",")) for a in sys.argv[1:]]
-    if not pool_configs:
-        pool_configs = [(2, 6, 24), (2, 4, 8, 24), (2, 4, 8, 16, 32), (4, 24)]
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"needs a GPU, found {dev.platform}")
+    rec = {"device_kind": dev.device_kind, "nvidia_smi": cc.nvidia_smi(),
+           "jax": jax.__version__}
+    print(json.dumps(rec), flush=True)
 
-    ctx = vg.createContext()
-    vg.begin(ctx, 0, 1920, 1080, 1.0)
-    draw_benchmark_frame(ctx, 0.0)
-    vg.end(ctx, background=(0.12, 0.12, 0.13, 1.0))
-    ctx._finalize_ops()
-    th, tw = ctx.cfg.tile_h, ctx.cfg.tile_w
+    def reduction(ce, th, tw):
+        px = jax.lax.broadcasted_iota(jnp.float32, (th, tw), 1)
+        py = jax.lax.broadcasted_iota(jnp.float32, (th, tw), 0)
+        e = ce[:, :, :, None, None]
+        terms = cov._edge_contribution(px, py, e[:, :, 0], e[:, :, 1],
+                                       e[:, :, 2], e[:, :, 3])
+        return jnp.sum(terms, axis=1).reshape(ce.shape[0], th * tw)
 
-    def timeit(fn, *args):
-        lo, hi = 3, 24
-        float(np.asarray(fn(*args, n=lo)))
-        float(np.asarray(fn(*args, n=hi)))
-        best = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            float(np.asarray(fn(*args, n=lo)))
-            t1 = time.perf_counter()
-            float(np.asarray(fn(*args, n=hi)))
-            t2 = time.perf_counter()
-            best.append(((t2 - t1) - (t1 - t0)) / (hi - lo) * 1e3)
-        return sorted(best)[1]
+    forms = {
+        "scan": lambda ce, th, tw: cov.coverage_chunks_body(ce, th, tw).reshape(
+            ce.shape[0], -1),
+        "fused": cov.coverage_chunks_broadcast,
+        "reduction": reduction,
+    }
+    for ss in (1, 2):
+        ctx = vg.createContext(vg.ContextConfig(coverage_supersample=ss))
+        vg.begin(ctx, 0, 1920, 1080, 1.0)
+        draw_benchmark_frame(ctx, 0.0)
+        vg.end(ctx, background=cc.BG)
+        plan, d = ctx.last_plan, ctx.last_device_arrays
+        th, tw = plan.tile_h, plan.tile_w
+        pools = [ce for ce, _ in d["chunk_pools"]]
 
-    from vgtpu.ops.coverage import build_cov_gather_map, cov_all_resolved
-
-    # ---- unroll sweep on the default pools ----
-    from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t_raw
-
-    plan0 = bin_frame(ctx.ops, ctx.fb_width, ctx.fb_height, tile_h=th,
-                      tile_w=tw, pools=(2, 6, 24))
-    for pi, (ce, _cent) in enumerate(plan0.chunk_pools):
-        ced = jax.device_put(ce)
-        ch = ce.shape[1]
-        for u in (1, 2, 3, 4, 6, 8, 12):
-            if ch % u:
-                continue
-
-            @functools.partial(jax.jit, static_argnames=("n", "u"))
-            def kloop(ced, n, u):
+        alone = {}
+        for name, f in forms.items():
+            def chain(ce, f=f):
                 def body(i, eps):
-                    cov = coverage_chunks_pallas_t_raw(ced + eps, th, tw, unroll=u)
-                    return jnp.sum(cov[:, 0]) * 1e-9
+                    return jnp.sum(f(ce + eps, th, tw)[:, ::97]) * 1e-9
+                return jax.lax.fori_loop(0, 10, body, jnp.float32(0.0))
+            jf = jax.jit(chain)
+            alone[name] = sum(_median_ms(lambda ce=ce: jf(ce), 15, per_call=10)
+                              for ce in pools)
+        row = {"ss": ss, "pools": [list(ce.shape) for ce in pools],
+               "alone_ms_sum_over_pools": alone}
 
-                return jax.lax.fori_loop(0, n, body, jnp.float32(0.0))
-
-            ms = timeit(functools.partial(kloop, u=u), ced)
-            print(f"pool[{pi}] shape={ce.shape} unroll={u}: {ms:.3f} ms", flush=True)
-
-    for pools in pool_configs:
-        plan = bin_frame(ctx.ops, ctx.fb_width, ctx.fb_height, tile_h=th,
-                         tile_w=tw, pools=pools)
-        m = build_cov_gather_map(plan.chunk_pools, plan.entry_backdrop.shape[0])
-        dm = jax.device_put(m)
-        pools_dev = jax.device_put(tuple(
-            (ce, cent) for ce, cent in plan.chunk_pools))
-
-        @functools.partial(jax.jit, static_argnames=("n",))
-        def cov_loop(pd, dmm, n):
-            def body(i, eps):
-                p = tuple((ce + eps, cent) for ce, cent in pd)
-                cov = cov_all_resolved(p, dmm, th, tw)
-                return jnp.sum(cov[:, 0]) * 1e-9
-
-            return jax.lax.fori_loop(0, n, body, jnp.float32(0.0))
-
-        ms = timeit(cov_loop, pools_dev, dm)
-        fs = fill_stats(plan)
-        slots = sum(n * c for n, c, _ in fs)
-        fill = sum(n * c * f for n, c, f in fs) / max(slots, 1)
-        extras = int((np.asarray(m["extra_chunk"]) < sum(
-            len(ce) for ce, _ in plan.chunk_pools)).sum())
-        print(f"pools={pools}  ms={ms:.3f}  slots={slots}  fill={fill:.2f}  "
-              f"chunks={plan.stats['chunks']}  extras={extras}  "
-              f"shapes={[(n, c) for n, c, _ in fs]}", flush=True)
+        statics = dict(frame_mod._plan_statics(plan, d))
+        fargs = (d["chunk_pools"], d["entry_backdrop"],
+                 frame_mod.composite_arrays(d),
+                 jnp.asarray(np.asarray(cc.BG, np.float32)))
+        compiled = {}
+        orig = cov.chunk_coverage
+        try:
+            for name, f in forms.items():
+                cov.chunk_coverage = f
+                compiled[name] = jax.jit(functools.partial(
+                    frame_mod._frame_body, **statics)).lower(*fargs).compile()
+        finally:
+            cov.chunk_coverage = orig
+        ref = np.asarray(compiled["scan"](*fargs))
+        row["frame_max_diff_vs_scan"] = {
+            n: float(np.abs(np.asarray(f(*fargs)) - ref).max())
+            for n, f in compiled.items()}
+        runs = {n: [] for n in forms}
+        for rnd in range(args.rounds):
+            order = list(forms) if rnd % 2 == 0 else list(forms)[::-1]
+            for n in order:
+                runs[n].append(_median_ms(lambda n=n: compiled[n](*fargs), 40))
+        row["frame_ms_rounds"] = runs
+        row["frame_ms_median"] = {n: statistics.median(v) for n, v in runs.items()}
+        rec[f"ss{ss}"] = row
+        print(json.dumps(row), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,8 @@
 """Host-stage profile of the bench anim pattern (paint-only animation on the
 full benchmark scene -> context._value_only_update patch path).
 
-anim_norm measured ~2.4x redraw_norm in BENCH r04 (50.6 vs 20.7 raw); this
-attributes the delta: record / fingerprint / paint_patch / dispatch, plus a
-cProfile of the patch itself.
+Attributes what the anim loop costs beyond a plain redraw: record /
+fingerprint / paint_patch / dispatch, plus a cProfile of the patch itself.
 
 Usage: JAX_PLATFORMS=cpu python tools/profile_anim.py [--cprofile]
 """

@@ -3,8 +3,8 @@ immediate UI) — where does the steady app frame's host time go?
 
 Runs on the CPU platform (JAX_PLATFORMS=cpu) so device dispatch is local;
 the interesting output is the per-stage HOST ms (record / layer / bin /
-textures / upload / dispatch).  Normalize by the host_spin probe when
-comparing across sessions (CLAUDE.md).
+textures / upload / dispatch).  Host times vary between machines;
+compare runs made on one machine.
 
 Usage: JAX_PLATFORMS=cpu python tools/profile_app.py
 """

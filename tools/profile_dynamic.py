@@ -1,6 +1,7 @@
 #!/usr/bin/env python
 """Break down the dynamic-frame (changed content) cost: record / geometry /
-bin / sampling / upload / dispatch.  Run on the real device, cwd=/root/repo."""
+bin / sampling / upload / dispatch.  Run from the repository root on the
+GPU (python tools/profile_dynamic.py)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Device-binning prototype: measure the core primitive on TPU (VERDICT r2
+"""Device-binning prototype: measure the core primitive on the device (VERDICT r2
 next-round item #6 — scope device binning with a design note + microbench,
 go/no-go before building).
 
@@ -22,12 +22,12 @@ must produce the same artifacts with STATIC shapes under jit:
      segment-sum of crossing contributions of edges LEFT of each tile
      (prototype: the winding sum primitive, same sort/segment machinery).
 
-Everything is sort/cumsum/gather/scatter — no atomics (TPU has none).
+Everything is sort/cumsum/gather/scatter — no atomics.
 This script times stages 1-4 at benchmark-frame scale (75k edges, 2025
 tiles, 355 ops, ~2.4 tiles/edge like the real expansion) with the
 chained-loop method (raster/benchloop.py rationale).
 
-Run: python tools/proto_device_bin.py  (TPU; CPU works for smoke tests)
+Run: python tools/proto_device_bin.py  (GPU; CPU works for smoke tests)
 """
 
 from __future__ import annotations

@@ -55,7 +55,7 @@ def _side_by_side(ours: np.ndarray, ref_path: str, out_path: str) -> None:
     canvas[: ours.shape[0], : ours.shape[1]] = ours
     canvas[: ref.shape[0], ours.shape[1] + 8 :] = ref
     Image.fromarray(canvas).save(out_path)
-    print(f"wrote {out_path}  (left: tpu-vg, right: reference screenshot)")
+    print(f"wrote {out_path}  (left: vgtpu, right: reference screenshot)")
 
 
 def main() -> None:

@@ -1,5 +1,5 @@
 """Runtime configuration (reference: ContextConfig, include/vg/vg.h:325-337,
-defaults at vg.cpp:719-730) plus TPU-specific knobs.
+defaults at vg.cpp:719-730) plus pipeline knobs.
 
 The reference's compile-time VG_CONFIG_* macros (vg.h:7-45) become runtime
 fields here — there is no preprocessor in a jitted pipeline; anything that
@@ -31,23 +31,21 @@ class ContextConfig:
     command_list_preserve_state: bool = False  # VG_CONFIG_COMMAND_LIST_PRESERVE_STATE (vg.h:34)
     min_font_size: float = 4.0             # VG_CONFIG_MIN_FONT_SIZE (vg.cpp:44)
 
-    # --- TPU pipeline knobs ---
-    tile_h: int = 8                        # one f32 VPU tile = 8 sublanes
-    tile_w: int = 128                      # x 128 lanes
+    # --- pipeline knobs ---
+    tile_h: int = 8                        # tile rows (pixels per tile: 8 x 128)
+    tile_w: int = 128                      # tile columns
     edges_per_chunk: int = 8               # numpy-oracle chunk size
     chunk_pools: tuple = ()                # native binner chunk-size pools;
                                            # () = pick by supersample mode:
-                                           # (2,4,8,24) at ss=1 (r03 sweep),
-                                           # (2,4,6,12,24) at ss>1 — the ss=2
-                                           # sub-row domain shifts the
-                                           # slot-fill/launch balance; same-
-                                           # session sweep measured 2.284 vs
-                                           # 2.455 ms (tools/tpu_ss2_tune.py)
+                                           # (2,4,8,24) at ss=1,
+                                           # (2,4,6,12,24) at ss>1 (the
+                                           # sub-row domain holds more
+                                           # edges per chunk); not yet
+                                           # tuned on a GPU
     max_ops_per_tile_cap: int = 256        # hard safety cap on composite depth
     tess_tol: float = 0.25                 # tessellation tolerance in px (vg.cpp:763)
     fringe: float = 1.0                    # AA fringe reference width in px (vg.cpp:764)
-    use_pallas: bool = True                # Pallas fine raster (False = pure-XLA path)
-    device_sampling: bool = True           # textures sampled on device (MXU hat-weight
+    device_sampling: bool = True           # textures sampled on device (hat-weight
                                            # matmuls); False = host numpy sampler
     frame_memo: bool = True                # re-recorded identical frames reuse the
                                            # resident device plan (skip bin/sample/upload)
@@ -74,12 +72,12 @@ class ContextConfig:
                                            # self-intersection coverage (the reference's
                                            # triangle meshes never conflate; analytic
                                            # box-filter coverage does at overlap pixels).
-                                           # ~ss x coverage cost; XLA composite path.
+                                           # ~ss x coverage cost.
     precision: str = "float32"
 
     def __post_init__(self) -> None:
-        assert self.tile_w in (128, 256), "tile width must be a lane multiple"
-        assert self.tile_h % 8 == 0, "tile height must be a sublane multiple"
+        assert self.tile_w in (128, 256), "tile width must be 128 or 256"
+        assert self.tile_h % 8 == 0, "tile height must be a multiple of 8"
         assert self.coverage_supersample in (1, 2, 4, 8), "supersample must be 1/2/4/8"
         if not self.chunk_pools:
             object.__setattr__(

@@ -2,7 +2,7 @@
 include/vg/stroker.h:11-85): the reference exposes its geometry kernels as
 renderer-independent free functions — the explicit unit-test seam (SURVEY §4).
 
-TPU-native shape of the contract: this engine has no triangle meshes — the
+Device-native shape of the contract: this engine has no triangle meshes — the
 stroker produces closed OUTLINE CONTOURS whose winding edges feed the analytic
 coverage kernel, so `Mesh` here carries positions + contour table + (E,4)
 winding edges.  `strokerConvexFill` additionally provides the reference's
@@ -48,7 +48,7 @@ class SubPath:
 class Mesh:
     """Geometry currency of the standalone stroker (vg.h:353-360 analogue).
     pos/indices mirror the reference where triangles exist (convex fan);
-    contours/edges are the TPU-native outline + winding-edge form."""
+    contours/edges are the engine's outline + winding-edge form."""
 
     pos: np.ndarray                         # (N,2) f32
     indices: np.ndarray | None = None       # (K,) u32 triangle list (fans)

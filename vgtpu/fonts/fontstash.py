@@ -142,7 +142,7 @@ class GlyphAtlas:
             d[2] = max(d[2], x + w)
             d[3] = max(d[3], y + h)
 
-    def get_or_bake(self, font_idx: int, font, glyph_name: str, glyph_id: int,
+    def get_or_bake(self, font_idx: int, font, glyph_id: int,
                     size_px: float) -> GlyphInfo | None:
         size10 = int(size_px * 10.0 + 0.5)
         code = glyph_code(glyph_id, size10)
@@ -152,7 +152,7 @@ class GlyphAtlas:
             gi.last_used = self.frame
             return gi
 
-        bitmap, x0, y0, w, h, adv = font.rasterize(glyph_name, size_px, pad=GLYPH_PAD)
+        bitmap, x0, y0, w, h, adv = font.rasterize(glyph_id, size_px, pad=GLYPH_PAD)
         if bitmap is None:
             gi = GlyphInfo(0, 0, 0, 0, 0, 0, adv, last_used=self.frame)
             self.glyphs[key] = gi

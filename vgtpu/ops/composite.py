@@ -238,7 +238,7 @@ def composite_tiles_body(
 
         return (fb, mask, accum)
 
-    unroll = 2 if max_ops % 2 == 0 else 1  # 4 measured slower
+    unroll = 2 if max_ops % 2 == 0 else 1
 
     def slot_group(carry, s0):
         # several painter slots per scan step: cuts sequential-step overhead
@@ -301,7 +301,7 @@ def composite_bucketed_body(
         bucket_flags = tuple((True,) * 7 for _ in buckets)
     for (te_b, ids_b), flags in zip(buckets, bucket_flags):
         # pre-gather the bucket's entries ONCE (one large gather instead of a
-        # gather per painter slot inside the scan — measured ~15% per frame)
+        # gather per painter slot inside the scan)
         nb, mo = te_b.shape
         e = jnp.maximum(te_b, 0)
         ef = e.reshape(-1)

@@ -1,6 +1,6 @@
 """Analytic winding-coverage accumulation (device).
 
-This is the TPU replacement for libtess2's sweep-line tessellation (SURVEY.md
+This replaces libtess2's sweep-line tessellation (SURVEY.md
 §2 #7) *and* the AA-fringe mesh expansion (stroker.cpp AA variants): instead of
 producing triangles with alpha ramps, each edge's exact box-filtered signed-area
 contribution is accumulated per pixel (see ARCHITECTURE.md for the derivation).
@@ -15,8 +15,6 @@ by TH*TW pixels, no ragged shapes anywhere on device.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +35,12 @@ def _edge_contribution(px, py, x0, y0, x1, y1):
     where c = clamp(u,0,1) — G needs no piecewise selects.  1/m is a
     per-EDGE scalar; near-vertical edges (|m| tiny) use the constant-u
     midpoint rule instead (error ≤ |m|·h/2 ≤ 0.005 coverage).
+
+    Pixels right of the edge (u0 + u1 > 1) use the reflection
+    G(u) = u - 1/2 + G(1-u): G(u0) - G(u1) = m·h + G(1-u0) - G(1-u1), so
+    the m·h part divides out exactly.  Evaluated directly, a pixel far right
+    of a steep edge (u ≫ 1) differences two large values and 1/m amplifies
+    their rounding; reflected, its contribution is exactly s·h.
     """
     ymin = jnp.minimum(y0, y1)
     ymax = jnp.maximum(y0, y1)
@@ -52,17 +56,22 @@ def _edge_contribution(px, py, x0, y0, x1, y1):
     u0 = (px + 1.0) - (x0 + m * (ytop - y0))
     u1 = u0 - m * h
 
-    c0 = jnp.clip(u0, 0.0, 1.0)
-    c1 = jnp.clip(u1, 0.0, 1.0)
-    g0 = c0 * (u0 - 0.5 * c0)
-    g1 = c1 * (u1 - 0.5 * c1)
-    general = (g0 - g1) * s_over_m
-    vertical = s * h * c0
+    right = u0 + u1 > 1.0
+    w0 = jnp.where(right, 1.0 - u0, u0)
+    w1 = jnp.where(right, 1.0 - u1, u1)
+    c0 = jnp.clip(w0, 0.0, 1.0)
+    c1 = jnp.clip(w1, 0.0, 1.0)
+    g0 = c0 * (w0 - 0.5 * c0)
+    g1 = c1 * (w1 - 0.5 * c1)
+    general = (g0 - g1) * s_over_m + jnp.where(right, s * h, 0.0)
+    vertical = s * h * jnp.clip(u0, 0.0, 1.0)
     return jnp.where(steep, vertical, general)
 
 
 def coverage_chunks_body(chunk_edges: jax.Array, tile_h: int = 8, tile_w: int = 128) -> jax.Array:
-    """Unjitted body (reused inside shard_map by vgtpu/parallel)."""
+    """(NC, CH, 4) edges -> (NC, TH, TW): a scan over the CH edge slots.
+    The plain reference the other formulations are checked against; it
+    writes the whole accumulator back to memory at every slot."""
     nc, ch, _ = chunk_edges.shape
     px = jax.lax.broadcasted_iota(jnp.float32, (tile_h, tile_w), 1)
     py = jax.lax.broadcasted_iota(jnp.float32, (tile_h, tile_w), 0)
@@ -82,18 +91,27 @@ def coverage_chunks_body(chunk_edges: jax.Array, tile_h: int = 8, tile_w: int = 
     return acc
 
 
-@functools.partial(jax.jit, static_argnames=("tile_h", "tile_w"))
-def coverage_chunks(chunk_edges: jax.Array, tile_h: int = 8, tile_w: int = 128) -> jax.Array:
-    """(NC, CHUNK, 4) edges -> (NC, TH, TW) summed winding contributions."""
-    return coverage_chunks_body(chunk_edges, tile_h, tile_w)
+def coverage_chunks_broadcast(chunk_edges: jax.Array, tile_h: int = 8,
+                              tile_w: int = 128) -> jax.Array:
+    """(NC, CH, 4) edges -> (NC, TH*TW): the CH slot terms summed in slot
+    order as one elementwise expression, which XLA fuses into a single
+    kernel — the accumulator stays in registers and (NC, TH*TW) is written
+    once.  Same terms, same order as coverage_chunks_body."""
+    nc, ch, _ = chunk_edges.shape
+    px = jax.lax.broadcasted_iota(jnp.float32, (tile_h, tile_w), 1)
+    py = jax.lax.broadcasted_iota(jnp.float32, (tile_h, tile_w), 0)
+    e = chunk_edges[:, :, :, None, None]
+    acc = None
+    for j in range(ch):
+        term = _edge_contribution(px, py, e[:, j, 0], e[:, j, 1], e[:, j, 2],
+                                  e[:, j, 3])
+        acc = term if acc is None else acc + term
+    return acc.reshape(nc, tile_h * tile_w)
 
 
-@functools.partial(jax.jit, static_argnames=("num_entries",))
-def accumulate_entries(
-    chunk_cov: jax.Array, chunk_entry: jax.Array, num_entries: int
-) -> jax.Array:
-    """Sum chunk coverages into per-(tile,op) entry coverage: (NE, TH, TW)."""
-    return jax.ops.segment_sum(chunk_cov, chunk_entry, num_segments=num_entries)
+def chunk_coverage(chunk_edges: jax.Array, tile_h: int, tile_w: int) -> jax.Array:
+    """(NC, CH, 4) edges -> (NC, TH*TW): the formulation every frame uses."""
+    return coverage_chunks_broadcast(chunk_edges, tile_h, tile_w)
 
 
 def build_cov_gather_map(chunk_pools, num_entries: int) -> dict:
@@ -103,8 +121,8 @@ def build_cov_gather_map(chunk_pools, num_entries: int) -> dict:
     the edge-count histogram), so the chunk->entry reduction is a
     near-permutation: entry coverage = one GATHER of each entry's primary
     chunk + a small scatter-add of the leftover chunks of multi-chunk
-    entries.  A gather is much cheaper than the general segment-sum scatter
-    (measured ~0.9 ms -> ~0.3 ms on the 1080p benchmark frame).
+    entries, which replaces most of the general segment-sum scatter with a
+    gather (the retained pan's entry coverage).
 
     Returns numpy arrays:
       primary (NE,) i32   — global chunk id per entry (dead id = all-zeros)
@@ -142,8 +160,6 @@ def build_cov_gather_map(chunk_pools, num_entries: int) -> dict:
         "primary": primary,
         "extra_chunk": ec,
         "extra_entry": ee,
-        # extras' target rows when folding into cov_all (see cov_all_resolved)
-        "extra_primary": primary[ee],
     }
 
 
@@ -155,41 +171,15 @@ def _next_bucket(n: int, minimum: int = 8) -> int:
 
 def _cov_all(chunk_pools, tile_h: int, tile_w: int) -> jax.Array:
     """All pools' per-chunk coverage as ONE (NC+1, NPX) array (last row is
-    the all-zeros 'dead chunk' that chunkless entries index).  Pools with
-    lane-aligned chunk counts take the chunk-major Pallas kernel on TPU
-    (writes (NC, NPX) directly — no HBM transpose pass); the backend choice
-    is trace-time (platform is static under jit)."""
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:  # noqa: BLE001
-        on_tpu = False
-    npx = tile_h * tile_w
-    covs = []
-    for ce, _cent in chunk_pools:
-        if on_tpu and ce.shape[0] % 128 == 0 and ce.shape[0] >= 128:
-            from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_rt_raw
-
-            covs.append(coverage_chunks_pallas_rt_raw(ce, tile_h, tile_w))
-        else:
-            covs.append(coverage_chunks_body(ce, tile_h, tile_w).reshape(-1, npx))
-    covs.append(jnp.zeros((1, npx), jnp.float32))       # dead chunk row
-    return jnp.concatenate(covs, axis=0)                # (NC+1, NPX)
-
-
-def cov_all_resolved(chunk_pools, cov_map: dict, tile_h: int, tile_w: int) -> jax.Array:
-    """Chunk coverage with multi-chunk entries' extra coverage folded into
-    their primary chunk's row (so entry coverage == cov_all[primary[e]] by
-    construction).  Lets the fused composite gather straight from chunk
-    coverage — the (NE, NPX) entry_w array is never materialized."""
-    cov_all = _cov_all(chunk_pools, tile_h, tile_w)
-    # fold extras into their entry's primary chunk row (primary rows are
-    # unique per entry; extra rows are only ever sources)
-    return cov_all.at[cov_map["extra_primary"]].add(cov_all[cov_map["extra_chunk"]])
+    the all-zeros 'dead chunk' that chunkless entries index)."""
+    covs = [chunk_coverage(ce, tile_h, tile_w) for ce, _cent in chunk_pools]
+    covs.append(jnp.zeros((1, tile_h * tile_w), jnp.float32))   # dead chunk row
+    return jnp.concatenate(covs, axis=0)                         # (NC+1, NPX)
 
 
 def entry_coverage_gather(chunk_pools, cov_map: dict, num_entries: int,
                           tile_h: int, tile_w: int) -> jax.Array:
-    """Entry coverage via the inverse-permutation gather (TPU fast path).
+    """Entry coverage via the inverse-permutation gather (build_cov_gather_map).
     Matches entry_coverage_from_pools up to float reassociation across a
     multi-chunk entry's adds (same chunk order, so identical for the
     single-chunk majority; tests compare both paths pixel-wise)."""
@@ -205,28 +195,12 @@ def entry_coverage_from_pools(chunk_pools, num_entries: int,
     with few edges use small chunks — measured 47%→66% slot fill on the
     benchmark scene).  Coverage is additive, so pools sum independently.
 
-    On TPU, pools with lane-aligned chunk counts use the transposed-layout
-    Pallas kernel (coverage_pallas.coverage_chunks_pallas_t — measured faster
-    than the XLA formulation); everything else takes the XLA path.  The
-    backend choice is trace-time (platform is static under jit).
-
-    The reduction runs on FLAT (chunks, pixels) 2D arrays: segment-summing
-    the 3D (chunks, th, tw) form measured ~0.6 ms slower per frame at 1080p
-    (XLA fuses the kernel-output transpose + 2D segment-sum into one pass)."""
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:  # noqa: BLE001
-        on_tpu = False
-    npx = tile_h * tile_w
+    The reduction runs on FLAT (chunks, pixels) 2D arrays.  On a GPU the
+    segment-sum is a scatter-add whose float order may change from run to
+    run, so comparisons against it carry a tolerance."""
     acc = None
     for ce, cent in chunk_pools:
-        if on_tpu and ce.shape[0] % 128 == 0 and ce.shape[0] >= 128:
-            from vgtpu.ops.coverage_pallas import coverage_chunks_pallas_t_raw
-
-            cov_flat = jnp.transpose(
-                coverage_chunks_pallas_t_raw(ce, tile_h, tile_w), (1, 0))
-        else:
-            cov_flat = coverage_chunks_body(ce, tile_h, tile_w).reshape(-1, npx)
+        cov_flat = chunk_coverage(ce, tile_h, tile_w)
         part = jax.ops.segment_sum(cov_flat, cent, num_segments=num_entries)
         acc = part if acc is None else acc + part
     return acc.reshape(num_entries, tile_h, tile_w)

@@ -1,7 +1,7 @@
 """Multi-chip frame rendering over a jax.sharding.Mesh — collective-free.
 
 The reference has no distributed anything (SURVEY.md §2, explicit); scaling is
-a new capability designed for the TPU: the screen-tile grid is the data axis.
+a new capability: the screen-tile grid is the data axis.
 
 Ownership is a tree: each edge CHUNK feeds exactly one (tile,op) ENTRY
 (raster/binning.py builds chunk_entry that way) and each entry belongs to
@@ -16,23 +16,25 @@ frame is device-local:
     chunk_entry rewritten to local entry ids;
   - coverage, the chunk->entry segment-sum, and the composite then all run
     on local shards with NO collective anywhere in the frame (the previous
-    layout psum'd the full (NE, TH, TW) entry coverage — ~74 MB of ICI
-    traffic per 1080p benchmark frame);
+    layout psum'd the full (NE, TH, TW) entry coverage — ~74 MB of
+    interconnect traffic per 1080p benchmark frame);
   - the framebuffer comes back tile-sharded; assembling the (H, W, 4)
     image is the one unavoidable output gather (XLA inserts it when the
     caller requests the replicated image).
 
-The per-entry adds keep their order (stable grouping), so the sharded frame
-is BIT-EQUAL to the single-device render (asserted by __graft_entry__'s
-dryrun and tests/test_parallel.py).
+The per-entry adds keep their order (stable grouping), so on the CPU the
+sharded frame is BIT-EQUAL to the single-device render (asserted by
+__graft_entry__'s dryrun and tests/test_parallel.py); on a GPU the
+segment-sum is a scatter-add whose order may vary, so the card-side check
+(chip_smoke.py --four-cards) compares within a float tolerance.
 
 Cost of locality is load imbalance: per-device chunk/entry counts are padded
 to the max across devices.  Tiles are assigned to devices by LPT greedy on
 per-tile chunk load (contiguous blocks correlate with scene density —
 measured chunk balance 0.65 at n=8 vs ~0.99 balanced) and the tile rows
 permuted device-contiguous; the output gather unpermutes.
-partition_plan_for_mesh returns the measured imbalance so
-bench_multichip.py can report it (docs/multichip.md).
+partition_plan_for_mesh returns the measured imbalance
+(docs/multichip.md).
 
 Everything runs in ONE jitted shard_map program per frame.
 """
@@ -56,9 +58,8 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
 
 
 def _bucket_up(n: int, minimum: int = 8) -> int:
-    """Pad a per-device count to a stable bucket: 128-multiples once lanes
-    matter (the Pallas coverage kernel wants %128 chunk counts), small
-    power-of-two-ish buckets below."""
+    """Pad a per-device count to a stable bucket: 128-multiples above 128
+    (few distinct shapes), small power-of-two-ish buckets below."""
     from vgtpu.raster.binning import _bucket
 
     if n >= 128:
@@ -170,7 +171,6 @@ def partition_plan_for_mesh(d: dict, plan, n: int) -> tuple[dict, dict]:
     # entries sum in the same order as the single-device frame
     pools = []
     chunk_counts = []
-    pool_maps = []
     for ce, cent in d["chunk_pools"]:
         ce = np.asarray(ce)
         cent = np.asarray(cent).astype(np.int64)
@@ -189,7 +189,6 @@ def partition_plan_for_mesh(d: dict, plan, n: int) -> tuple[dict, dict]:
         cent_out[slot] = local_of[cent[keep]].astype(np.int32)
         pools.append((ce_out, cent_out))
         chunk_counts.append(counts_c)
-        pool_maps.append((keep, slot, nc_dev))
 
     arrays = {
         "chunk_pools": tuple(pools),
@@ -225,15 +224,7 @@ def partition_plan_for_mesh(d: dict, plan, n: int) -> tuple[dict, dict]:
             / max(np.bincount(owner_e[:n_real], minlength=n).max(), 1)),
         "chunk_slots_live": live,
         "chunk_slots_padded": padded,
-        "ici_bytes_per_frame": 0,   # no collective in the frame body
-        # partition maps for the fused-kernel sharding (sharded_fused.py):
-        # which device owns each tile/entry, each entry's device-local id,
-        # and per pool (kept global chunk ids, their packed device-major
-        # slots, per-device padded count)
-        "dev_of_tile": dev_of_tile,
-        "owner_e": owner_e,
-        "local_of": local_of,
-        "pool_maps": pool_maps,
+        "collective_bytes_per_frame": 0,   # no collective in the frame body
     }
     return arrays, meta
 
@@ -288,16 +279,6 @@ def render_frame_sharded(plan, device_arrays: dict, mesh: Mesh,
                          background=(1, 1, 1, 1), return_meta: bool = False):
     """Full sharded frame -> (H, W, 4) premultiplied image (gathered)."""
     n = mesh.devices.size
-    if "entry_kind" not in device_arrays:
-        # dedup-upload plans (frame.plan_to_device on TPU) ship compact
-        # pseudo-op tables instead of the dense per-entry arrays; the plan
-        # keeps the dense host copies — use those here
-        device_arrays = {
-            **device_arrays,
-            "entry_kind": plan.entry_kind, "entry_rule": plan.entry_rule,
-            "entry_aa": plan.entry_aa, "entry_paint_kind": plan.entry_paint_kind,
-            "entry_paint": plan.entry_paint, "entry_scissor": plan.entry_scissor,
-        }
     arrays, meta = partition_plan_for_mesh(device_arrays, plan, n)
     fn = make_sharded_frame_fn(mesh, plan, meta["ne_dev"], meta["t_pad"],
                                n_pools=len(arrays["chunk_pools"]))

@@ -562,7 +562,7 @@ def bin_frame_incremental(ops, width, height, tile_h, tile_w, pools,
     """Native binning with a frame-over-frame run cache: ops positionally
     identical to the previous frame reuse that frame's binning result as
     contiguous slices; only changed ops go through the native binner.  The
-    practical retained-scene path (ROUND_NOTES): a mostly-static re-recorded
+    practical retained-scene path: a mostly-static re-recorded
     frame re-bins only what moved (~3x cheaper than a full bin at 7% churn
     on the benchmark scene).  Falls back to a full native bin — while still
     priming the cache — when the op count changes (scene-graph edits) or the

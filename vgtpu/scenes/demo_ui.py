@@ -11,39 +11,18 @@ import numpy as np
 
 import vgtpu as vg
 
-_FONT_DATA: list = []    # [bytes | None], loaded once
-
-
 def _font(ctx):
-    """UI font handle, cached ON the context (id(ctx) keys get reused after
-    GC — a second Context could inherit a stale handle).  Falls back to
-    matplotlib's bundled DejaVuSans; text silently disappears without it, so
-    a missing font WARNS instead of quietly lightening the benchmark."""
+    """UI font handle (the package's DejaVu Sans), cached ON the context
+    (id(ctx) keys get reused after GC — a second Context could inherit a
+    stale handle)."""
     handle = getattr(ctx, "_demo_ui_font", None)
-    if handle is not None:
-        return handle
-    if not _FONT_DATA:
-        import glob
-        import sys
+    if handle is None:
+        from vgtpu.fonts import default_font_data
 
-        candidates = glob.glob(
-            "/root/.cache/uv/**/mpl-data/fonts/ttf/DejaVuSans.ttf", recursive=True
-        ) or glob.glob(
-            "/opt/venv/**/mpl-data/fonts/ttf/DejaVuSans.ttf", recursive=True
-        )
-        if candidates:
-            _FONT_DATA.append(open(candidates[0], "rb").read())
-        else:
-            print("[vgtpu.demo_ui] WARNING: no UI font found; benchmark text "
-                  "will be missing (metric measures a lighter scene)",
-                  file=sys.stderr)
-            _FONT_DATA.append(None)
-    data = _FONT_DATA[0]
-    if data is None:
-        ctx._demo_ui_font = None
-        return None
-    ctx._demo_ui_font = vg.createFont(ctx, "ui-sans", data, len(data), 0)
-    return ctx._demo_ui_font
+        data = default_font_data()
+        handle = ctx._demo_ui_font = vg.createFont(ctx, "ui-sans", data,
+                                                   len(data), 0)
+    return handle
 
 
 def draw_window(ctx, title, x, y, w, h):
@@ -69,11 +48,9 @@ def draw_window(ctx, title, x, y, w, h):
     vg.moveTo(ctx, x + 0.5, y + 0.5 + 30)
     vg.lineTo(ctx, x + 0.5 + w - 1, y + 0.5 + 30)
     vg.strokePath(ctx, vg.color4ub(0, 0, 0, 60), 1.0, vg.StrokeFlags.ButtMiterAA)
-    f = _font(ctx)
-    if f is not None:
-        cfg = vg.makeTextConfig(ctx, f, 16.0, vg.TextAlign.MiddleCenter,
-                                vg.color4ub(220, 220, 220, 200))
-        vg.text(ctx, cfg, x + w / 2, y + 16, title)
+    cfg = vg.makeTextConfig(ctx, _font(ctx), 16.0, vg.TextAlign.MiddleCenter,
+                            vg.color4ub(220, 220, 220, 200))
+    vg.text(ctx, cfg, x + w / 2, y + 16, title)
 
 
 def draw_button(ctx, label, x, y, w, h, color):
@@ -87,11 +64,9 @@ def draw_button(ctx, label, x, y, w, h, color):
     vg.beginPath(ctx)
     vg.roundedRect(ctx, x + 0.5, y + 0.5, w - 1, h - 1, 4.5)
     vg.strokePath(ctx, vg.color4ub(0, 0, 0, 120), 1.0, vg.StrokeFlags.ButtMiterAA)
-    f = _font(ctx)
-    if f is not None:
-        cfg = vg.makeTextConfig(ctx, f, 15.0, vg.TextAlign.MiddleCenter,
-                                vg.color4ub(255, 255, 255, 200))
-        vg.text(ctx, cfg, x + w / 2, y + h / 2, label)
+    cfg = vg.makeTextConfig(ctx, _font(ctx), 15.0, vg.TextAlign.MiddleCenter,
+                            vg.color4ub(255, 255, 255, 200))
+    vg.text(ctx, cfg, x + w / 2, y + h / 2, label)
 
 
 def draw_slider(ctx, pos, x, y, w, h):
@@ -180,7 +155,6 @@ def draw_clipped_pattern(ctx, x, y, w, h, t):
 def draw_demo_ui(ctx, t: float = 0.0, x0: float = 980.0, y0: float = 40.0) -> None:
     """The UI half of the benchmark frame."""
     draw_window(ctx, "Widgets & Layout", x0, y0, 420, 840)
-    f = _font(ctx)
     yy = y0 + 50
     for i, label in enumerate(["Login", "Delete", "Cancel", "Apply"]):
         col = [
@@ -200,16 +174,15 @@ def draw_demo_ui(ctx, t: float = 0.0, x0: float = 980.0, y0: float = 40.0) -> No
     yy += 120
     draw_clipped_pattern(ctx, x0 + 20, yy, 380, 80, t)
 
-    if f is not None:
-        cfg = vg.makeTextConfig(ctx, f, 13.0, vg.TextAlign.TopLeft,
-                                vg.color4ub(200, 200, 200, 160))
-        vg.textBox(
-            ctx, cfg, x0 + 20, y0 + 790,
-            380.0,
-            "The quick brown fox jumps over the lazy dog while the renderer "
-            "wraps, kerns and caches every glyph.",
-            None, 0,
-        )
+    cfg = vg.makeTextConfig(ctx, _font(ctx), 13.0, vg.TextAlign.TopLeft,
+                            vg.color4ub(200, 200, 200, 160))
+    vg.textBox(
+        ctx, cfg, x0 + 20, y0 + 790,
+        380.0,
+        "The quick brown fox jumps over the lazy dog while the renderer "
+        "wraps, kerns and caches every glyph.",
+        None, 0,
+    )
 
 
 def draw_benchmark_frame(ctx, t: float = 0.0) -> None:

@@ -1,6 +1,6 @@
 """Per-stage frame profiling + counters (SURVEY.md §5: the reference ships
 only debug printf macros, vg.h:47-73, and command-list memory Stats,
-vg.h:339-343 — a production TPU engine needs real observability).
+vg.h:339-343 — a production engine needs real observability).
 
 Usage:
     prof = FrameProfiler()
